@@ -1,29 +1,25 @@
 #!/usr/bin/env python
-"""Headline benchmark: 1080p-class IPPP encode frames/s on one TPU chip.
+"""Headline benchmark: 1080p-class IPPP encode frames/s on one GPU.
 
-Runs on the real TPU chip (do NOT force JAX_PLATFORMS=cpu here). Encodes
-1920x1088 synthetic video (the reference's own chessboard fixture) with
-GOP 20 at QP 33 — the full pipeline: 3-stage motion search, qpel MC,
-inter/intra16/intra4x4 decision, deblocking, CAVLC with device-side bit
-packing.
+Runs on the GPU and exits non-zero when JAX's default platform is not
+one. Encodes 1920x1088 synthetic video (the reference's own chessboard
+fixture) with GOP 20 at QP 33 — the full pipeline: 3-stage motion
+search, qpel MC, inter/intra16/intra4x4 decision, deblocking, CAVLC
+with device-side bit packing.
 
-The chip encodes G independent GOP lanes per dispatch (GopBandEncoder,
+The device encodes G independent GOP lanes per dispatch (GopBandEncoder,
 no mesh: the same lane machinery that shards over a ("gop", "band")
-mesh, here filling ONE chip). The wavefront scan is latency-bound at
+mesh, here filling ONE device). The wavefront scan is latency-bound at
 batch 1 — ~190 sequential diagonal steps of <=68 MBs — so lane-batching
-widens every step G-fold at near-constant step time. This is throughput
-per chip on BASELINE config 5's decomposition (closed GOPs in
-parallel); per-frame latency is the sequential H264Encoder's number,
-not this one. Host packing of step N overlaps device compute of step
-N+1 (encode_step_async/finish_step).
+widens every step G-fold. This is throughput per device on the
+closed-GOP decomposition; per-frame latency is the sequential
+H264Encoder's number, not this one. Host packing of step N overlaps
+device compute of step N+1 (encode_step_async/finish_step).
 
-Baseline: the C reference encoder (built from /root/reference, gcc -O2,
-single thread, this host) measured 4.64 fps on the same 30-frame input
-at GOP 20 / QP 33 (all-intra gop=1: 16.2 fps). The reference publishes
-no numbers (BASELINE.md), so these locally measured figures define
-vs_baseline. RD fairness of the comparison (PSNR/bitrate at equal QP)
-is measured separately by tests/test_rd_parity.py and recorded in
-RD_COMPARE.md.
+Baseline: the C reference encoder (gcc -O2, one thread) measured 4.64 fps
+on the round-5 host on the same 30-frame input at GOP 20 / QP 33, at its
+default (speed 0) preset. The reference publishes no numbers
+(BASELINE.md), so that locally measured figure defines vs_baseline.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
 """
@@ -37,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from h264lab_tpu.config import EncoderConfig, RunConfig  # noqa: E402
 from h264lab_tpu.parallel.gop import GopBandEncoder  # noqa: E402
+from h264lab_tpu.utils.device import require_gpu  # noqa: E402
 from h264lab_tpu.utils.synthetic import chessboard_sequence  # noqa: E402
 
 WIDTH, HEIGHT = 1920, 1088
@@ -48,15 +45,16 @@ WARMUP = 3
 SPEED = int(os.environ.get("BENCH_SPEED", "2"))
 # Hard wall-clock budget (s, from process start): the timed loop stops
 # early and reports the steps it completed, so a number always prints
-# inside the driver's window even on a cold compile cache. (The package
-# enables a persistent compilation cache in .jax_cache, so warm runs
-# spend seconds, not minutes, before the first timed step.)
+# inside the time limit even on a cold compile cache. (The package
+# enables a persistent compilation cache, so warm runs spend seconds,
+# not minutes, before the first timed step.)
 DEADLINE = float(os.environ.get("BENCH_DEADLINE", "480"))
 
-REF_FPS_IPPP = 4.64        # C reference, gop=20, this host, 1 thread
+REF_FPS_IPPP = 4.64        # C reference, gop=20, round-5 host, 1 thread
 
 
 def main():
+    require_gpu()
     start = time.time()
     n_src = WARMUP + 1 + STEPS
     frames = list(chessboard_sequence(WIDTH, HEIGHT, n_src))

@@ -3,7 +3,7 @@
 Design: unlike the reference's streaming 32-bit big-endian bit cache
 (`src/h264-lab.h:2688-2772`), this writer *records* (value, nbits) symbol
 pairs into growable numpy arrays and packs them into bytes in one
-vectorized pass at the end. That matches the TPU encoder's shape: device
+vectorized pass at the end. That matches the encoder's shape: device
 kernels emit dense symbol arrays (CAVLC levels, golomb codes) which are
 appended wholesale, and bit packing is a single prefix-sum/packbits pass
 rather than a per-symbol loop.

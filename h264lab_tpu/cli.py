@@ -29,7 +29,7 @@ DEFAULT_MAX_FRAMES = 99999
 def build_parser():
     p = argparse.ArgumentParser(
         prog="h264lab_tpu",
-        description="TPU-native H.264 baseline encoder")
+        description="H.264 baseline encoder in JAX")
     p.add_argument("--input", "-i", help="input YUV 4:2:0 file")
     p.add_argument("--output", "-o", default="out.264", help="output .264")
     p.add_argument("--gen", action="store_true",
@@ -45,7 +45,7 @@ def build_parser():
     p.add_argument("--stats", action="store_true")
     p.add_argument("--psnr", action="store_true")
     p.add_argument("--threads", type=int, default=1,
-                   help="slice bands per frame (chip-parallel)")
+                   help="slice bands per frame (device-parallel)")
     p.add_argument("--temporal-layers", type=int, default=0, metavar="L",
                    help="dyadic temporal scalability over a 2^L-frame "
                         "period via long-term references (the reference "

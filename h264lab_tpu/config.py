@@ -90,9 +90,9 @@ class EncoderConfig:
     num_layers: int = 1
     inter_layer_pred_flag: bool = False
 
-    # Parallelism (TPU-native analog of the reference's max_threads,
+    # Parallelism (batched analog of the reference's max_threads,
     # `src/h264-lab.h:142-170`): number of independent slice bands per frame
-    # (encoded in one vmapped dispatch; shardable over chips), and
+    # (encoded in one vmapped dispatch; shardable over devices), and
     # GOP-parallel lane count (default for parallel.gop.GopBandEncoder /
     # encode_stream).
     slice_bands: int = 1

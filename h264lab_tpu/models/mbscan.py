@@ -2,7 +2,7 @@
 with all three MB candidates — inter 16x16 (P only), Intra_16x16 and
 Intra_4x4 — plus the unified CAVLC symbolization.
 
-This is the TPU-native re-design of the reference's `mb_encode` decision
+This is the batched re-design of the reference's `mb_encode` decision
 cascade (`src/h264-lab.h:5724-5812`). Structure:
 
 1. (P) pre-scan: hierarchical dense ME + MC + inter TQ, fully parallel
@@ -199,7 +199,7 @@ def inter_stage_core(src_y_mb, src_u_mb, src_v_mb,
                      enable_qpel: bool = True):
     """Stage 1 (P frames): hierarchical dense ME + partition search + MC
     + inter transform/quant — fully parallel over MBs (ops/me.py; the
-    TPU-native form of the reference's `inter_choose_mode` + diamond
+    batched form of the reference's `inter_choose_mode` + diamond
     search, `src/h264-lab.h:5283-5524`)."""
     nmb = mb_width * mb_height
     rr = jnp.arange(nmb, dtype=jnp.int32) // mb_width
@@ -958,8 +958,7 @@ def _mv_predictors(mv4_y, mv4_x, is_intra, mb_width, mb_height):
         """Neighbour block at MB-relative block offset (dy, dx) — a
         STRIDED STATIC SLICE (rows 4*rr+dy+1 = [1+dy::4]), not a gather:
         (dy, dx) come from the fixed partition tables, so every
-        neighbour read vectorizes on the VPU instead of the scalar
-        core."""
+        neighbour read is a dense vector slice."""
         def at(arr):
             return arr[1 + dy:1 + dy + 4 * mbh:4,
                        1 + dx:1 + dx + 4 * mbw:4].reshape(-1)
@@ -1421,7 +1420,7 @@ def _banded_stage_fns(mb_width: int, band_rows: int, has_inter: bool,
                       enable_i4x4: bool, enable_partitions: bool,
                       enable_qpel: bool, svc_base_mode_bit: bool):
     """Per-config jitted, band-vmapped stage functions (B equal slice
-    bands in one dispatch; the TPU-native form of the reference's
+    bands in one dispatch; the batched form of the reference's
     slice-thread fan-out `src/h264-lab.h:6511-6574`). Reference planes
     are shared across bands (MVs may cross band borders)."""
     f_inter = functools.partial(
@@ -1531,12 +1530,12 @@ def encode_frame_banded_core(src_y, src_u, src_v,
     """Encode B equal-height slice bands of one frame in a single
     dispatch: `jax.vmap` over the band axis turns each wavefront step
     into a (B, k)-wide batch, and under a `("band",)`-sharded mesh the
-    band axis partitions across chips — the TPU-native form of the
+    band axis partitions across devices — the batched form of the
     reference's slice-thread fan-out (`src/h264-lab.h:6511-6574`).
 
     src_*: (B, nmb_band, 16, 16)/(B, nmb_band, 8, 8); row0s: (B,) first
     MB row of each band; reference planes are full-frame (replicated
-    across chips — motion vectors may cross band borders). qp/qpc may be
+    across devices — motion vectors may cross band borders). qp/qpc may be
     scalars (uniform) or (B,) arrays — per-band QP is the fine-rate-
     control granularity (rc.band_qp_offsets; each band is its own slice,
     so per-band QP is plain slice_qp syntax, no mb_qp_delta needed).

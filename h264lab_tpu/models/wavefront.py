@@ -1,4 +1,4 @@
-"""Wavefront scan plan: the TPU-native replacement for the reference's
+"""Wavefront scan plan: the batched replacement for the reference's
 sequential macroblock raster loop (`encode_slice`, `src/h264-lab.h:6409-6461`).
 
 H.264 intra prediction and reconstruction have left/top data dependencies,

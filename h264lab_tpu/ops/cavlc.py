@@ -1,6 +1,6 @@
 """CAVLC residual entropy coding (spec 9.2), batched over 4x4 blocks.
 
-TPU-first design: where the reference's `h264e_vlc_encode`
+Batched design: where the reference's `h264e_vlc_encode`
 (`src/h264-lab.h:2775-2948`) walks one block at a time emitting bits into
 a serial cache, this op computes the complete VLC symbol expansion of
 *every* residual block of a frame in parallel:
@@ -43,11 +43,10 @@ _RB_VAL = jnp.asarray(tc.RUN_BEFORE_VAL)
 
 
 def _lut(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Gather-free small-table lookup: one-hot compare + masked sum.
-    Elementwise gathers run through the TPU scalar core (~20 ms per
-    million elements); for tables of a few hundred entries the dense
-    one-hot contraction runs at VPU speed instead. `table` flat (T,),
-    `idx` any shape of int32 in [0, T)."""
+    """Gather-free small-table lookup: one-hot compare + masked sum
+    (for tables of a few hundred entries, a dense contraction in place
+    of an elementwise gather). `table` flat (T,), `idx` any shape of
+    int32 in [0, T)."""
     flat = table.reshape(-1)
     r = jnp.arange(flat.shape[0], dtype=jnp.int32)
     oh = idx[..., None] == r
@@ -136,8 +135,7 @@ def encode_blocks(levels: jnp.ndarray, nc: jnp.ndarray, max_coeff):
     # Compact nonzero coeffs in REVERSE scan order without sort/gather:
     # rank[p] = number of nonzeros at scan positions > p; for a nonzero
     # at p, rank is its reverse-order index k. The compaction is then a
-    # masked one-hot reduction (VPU-friendly; elementwise gathers are
-    # scalar-core-bound on TPU).
+    # masked one-hot reduction (dense, no elementwise gather).
     nz_i = nonzero.astype(jnp.int32)
     rank = (jnp.cumsum(nz_i[:, ::-1], axis=1)[:, ::-1] - nz_i)    # (n, 16)
     onehot = (jnp.where(nonzero, rank, -1)[:, None, :]

@@ -4,7 +4,7 @@ Reference equivalents: edge kernels `deblock_luma_v/h`, `deblock_chroma_*`
 (`src/h264-lab.h:1191-1545`) and the per-MB strength derivation
 `df_strength`/`mb_deblock` (`:5535-5716`).
 
-TPU-first shape: deblocking runs *inside* the encode wavefront with a
+Batched shape: deblocking runs *inside* the encode wavefront with a
 one-diagonal lag (see models/mbscan.py) — MB (r,c)'s vertical edges need
 the horizontally-adjacent MB fully filtered, which the diagonal ordering
 provides. Each call here filters a whole diagonal's MBs at once on

@@ -1,7 +1,7 @@
 """Intra prediction, batched over macroblocks.
 
 Reference equivalents: `h264e_intra_predict_16x16` (`src/h264-lab.h:1677-1714`),
-`h264e_intra_predict_chroma` (`:1716-1781`). TPU-first: predictions for all
+`h264e_intra_predict_chroma` (`:1716-1781`). Batched: predictions for all
 candidate modes are computed for a whole wavefront of MBs at once from edge
 buffers (the carry state of the frame scan), and mode selection is a masked
 SAD argmin instead of branchy heuristics.

@@ -1,13 +1,13 @@
 """Motion estimation, batched over macroblocks — hierarchical dense search.
 
-TPU-first re-design of the reference's candidate + small-diamond descent
+Batched re-design of the reference's candidate + small-diamond descent
 (`me_search_diamond`, `src/h264-lab.h:4973-5176`): branchy sequential
 descent maps poorly onto a vector machine, so ME here is a regular
 3-stage funnel evaluated for every MB of the frame at once:
 
 1. coarse: gather-free dense full search on the 4x-downsampled pyramid,
    +-8 coarse px = +-32 full px (the reference's MV_RANGE=32,
-   `src/h264-lab.h:3222`), 289 shifted-plane SAD maps — pure VPU work;
+   `src/h264-lab.h:3222`), 289 shifted-plane SAD maps — dense work;
 2. full-pel refine: one (34, 34) window per MB around the coarse winner
    (vmapped dynamic_slice — the only data-dependent memory access in the
    whole search), then a dense +-3 sweep of static window slices;
@@ -35,10 +35,8 @@ likewise applied post-scan.
 The aligned windows also drive partition ME (16x8/8x16/8x8) with purely
 static slicing, and the winning predictions double as the motion-
 compensated luma, so the inter luma path performs no further
-interpolation or MC gathers. Avoiding elementwise gathers is the central
-performance rule here: on TPU they run through the scalar core at
-~20 ms per million elements, while dense shifted-slice sweeps and
-masked selects run at VPU/HBM speed.
+interpolation or MC gathers. The search avoids elementwise gathers
+throughout, using dense shifted-slice sweeps and masked selects instead.
 """
 
 from __future__ import annotations
@@ -66,10 +64,20 @@ def mv_bits(v: jnp.ndarray) -> jnp.ndarray:
     return 2 * nb - 1
 
 
+# int(max(sqrt(0.85 * 2 ** ((qp - 12) / 3)), 1)) for qp = 0..51: the
+# truncated sqrt of the JM mode lambda, tabulated so that no float sits
+# on the decision path (tests/test_backend_digest.py pins it against the
+# formula).
+LAMBDA_ME = np.array(
+    [1] * 19 + [2, 2, 2, 2, 3, 3, 4, 4, 5, 5, 6, 7, 8, 9, 10, 11, 13, 14,
+                16, 18, 20, 23, 26, 29, 33, 37, 41, 46, 52, 59, 66, 74, 83],
+    np.int32)
+
+
 def lambda_me(qp: jnp.ndarray) -> jnp.ndarray:
     """sqrt of the JM mode lambda, in int (>=1)."""
-    lam = 0.85 * 2.0 ** ((qp.astype(jnp.float32) - 12.0) / 3.0)
-    return jnp.maximum(jnp.sqrt(lam), 1.0).astype(jnp.int32)
+    return jnp.take(jnp.asarray(LAMBDA_ME), jnp.asarray(qp, jnp.int32),
+                    mode="clip")
 
 
 def downsample4(plane: jnp.ndarray) -> jnp.ndarray:
@@ -125,9 +133,9 @@ def coarse_search_4x(cur4, ref4_pad, lam, mb_height: int, mb_width: int,
 
 
 def _slice_windows(plane, oy, ox, sh: int, sw: int):
-    """Per-MB (sh, sw) windows via vmapped dynamic_slice (~7x faster than
-    an elementwise gather on TPU). Offsets must be in-range: dynamic_slice
-    clamps out-of-range starts, which would silently misalign windows."""
+    """Per-MB (sh, sw) windows via vmapped dynamic_slice. Offsets must be
+    in-range: dynamic_slice clamps out-of-range starts, which would
+    silently misalign windows."""
     f = jax.vmap(lambda y, x: jax.lax.dynamic_slice(plane, (y, x), (sh, sw)))
     return f(oy, ox)
 
@@ -137,8 +145,7 @@ def _tiled_windows(ref_pad, mb_height: int, mb_width: int, row_offset,
     """(nmb, 16+2m, 16+2m) zero-MV search windows — one per MB tile —
     built from NINE static strided reshapes of the reference plane plus
     one contiguous dynamic_slice (band offset). The zero-MV candidate's
-    windows need no gather at all: a measured 151 ms gather per 1080p
-    x8-lane dispatch becomes ~2 ms of plain HBM copies. Requires
+    windows need no gather at all, only plain copies. Requires
     GUARD >= m + 16."""
     g = qpel.GUARD
     H16, W16 = 16 * mb_height, 16 * mb_width
@@ -428,9 +435,9 @@ def motion_search_dense(cur_plane, cur_tiles, ref_pad, ref4_pad,
     # Like the reference (`:5388-5412`), the BEST candidate is selected
     # first — full-resolution 16x16 SAD + lambda*mv-bits per centre —
     # and only the winner's window is refined. Gather-callsite economy
-    # is the design rule: a vmapped per-MB dynamic_slice costs ~140 ms
-    # per 1080p x8-lane dispatch REGARDLESS of slice size (per-index
-    # overhead), so the centre SADs come from static slices of the same
+    # is the design rule: a vmapped per-MB dynamic_slice pays a
+    # per-index overhead whatever the slice size, so the centre SADs
+    # come from static slices of the same
     # windows (zero-MV windows are static tiling — no gather at all)
     # and the whole search performs exactly two gathers.
     def centre_cost(win_i, cy, cx):

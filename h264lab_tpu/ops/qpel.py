@@ -2,7 +2,7 @@
 once per reference frame, quarter-pel by averaging, chroma 1/8-pel
 bilinear.
 
-TPU-first: where the reference interpolates one 16x16 block at a time per
+Batched: where the reference interpolates one 16x16 block at a time per
 qpel position (`h264e_qpel_interpolate_luma`, `src/h264-lab.h:2079-2131`),
 we precompute the three half-pel planes (b: horizontal, h: vertical,
 j: center) for the whole padded reference frame as fused XLA stencils, and

@@ -1,10 +1,10 @@
 """4x4 integer transform, Hadamard DC transforms, quantization and
 dequantization — batched over blocks as `(..., 4, 4)` int32 tensors.
 
-TPU-first design: where the reference runs one 4x4 block at a time through
+Batched design: where the reference runs one 4x4 block at a time through
 scalar butterflies (`FwdTransformResidual4x42` `src/h264-lab.h:2385-2434`,
 `TransformResidual4x4` `:2436-2489`, `quantize` `:2536-2597`), these ops
-process every block of a frame in one fused XLA computation on the VPU.
+process every block of a frame in one fused XLA computation.
 All math is int32 with the spec's exact rounding, so reconstruction is
 bit-identical to a conforming decoder:
 
@@ -128,7 +128,7 @@ def quant4x4(coef: jnp.ndarray, qp, deadzone_q8) -> jnp.ndarray:
     f = deadzone_q8/256 * 2^(15+qp//6). `qp` and `deadzone_q8` broadcast
     against the block batch (scalars or per-block arrays).
     """
-    # int32 throughout (TPU has no native int64): |coef| <= 255*36 < 2^14
+    # int32 throughout (JAX defaults to 32-bit integers): |coef| <= 255*36 < 2^14
     # (worst-case residual +-255 through the gain-6-per-1D core transform),
     # MF <= 13107 < 2^14, so |coef|*MF < 2^28; f = dz << (qbits-8) <= 2^23.
     coef = coef.astype(jnp.int32)

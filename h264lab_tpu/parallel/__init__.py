@@ -1,1 +1,1 @@
-"""Device-mesh sharding: GOP parallelism over hosts, slice bands over chips."""
+"""Device-mesh sharding: closed-GOP lanes and slice bands over devices."""

@@ -1,7 +1,7 @@
 """ctypes bindings for the optional `_h264lab_native` C++ extension.
 
-The native library accelerates the host-side runtime around the TPU compute
-path: NAL emulation-prevention escaping and variable-length bit packing
+The native library accelerates the host-side runtime around the device
+compute path: NAL emulation-prevention escaping and variable-length bit packing
 (the analogs of the reference's `nal_put_esc` `src/h264-lab.h:3952-3977`
 and bit cache `:2688-2772`). Falls back transparently to numpy when the
 shared library has not been built (see native/README.md; `make -C native`).

@@ -1,7 +1,7 @@
 // Native host-side runtime for h264lab_tpu: variable-length bit packing and
 // NAL emulation-prevention escaping.
 //
-// These are the two host-side hot paths of the encoder (the TPU produces
+// These are the two host-side hot paths of the encoder (the device produces
 // dense (value, nbits) symbol arrays; the host packs them into RBSP bytes
 // and escapes them into NAL payloads). They are the C++ equivalents of the
 // reference's bit cache (src/h264-lab.h:2688-2772) and nal_put_esc

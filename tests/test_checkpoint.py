@@ -1,5 +1,5 @@
 """Checkpoint/resume: the encoder's full mutable state is a serializable
-snapshot (the TPU-native analog of the reference's relocatable flat
+snapshot (the batched analog of the reference's relocatable flat
 arenas, SURVEY.md §5.4). Resuming from a snapshot must continue the
 stream bit-exactly."""
 

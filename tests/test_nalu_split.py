@@ -1,7 +1,7 @@
 """desired_nalu_bytes: hard NALU-size enforcement.
 
 The reference starts a new slice whenever the current NALU exceeds the
-target (`src/h264-lab.h:6418-6424`). The TPU encoder plans the slice
+target (`src/h264-lab.h:6418-6424`). This encoder plans the slice
 count from the previous frame's size and *enforces* the bound in
 finish(): an oversized NALU rolls the frame back and re-encodes with
 more slices — so even a scene cut (which any prediction-based plan

@@ -3,7 +3,7 @@
 Validates the (gop x band) sharded encoder end-to-end: the sharded
 program must produce byte-identical streams to the single-device
 encoder, and the streams must decode bit-exactly (independent decoder).
-TPU-equivalent of testing the reference's slice-thread mode
+The batched equivalent of testing the reference's slice-thread mode
 (`src/h264-lab.h:6511-6574`) without a cluster (SURVEY.md §4).
 """
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Scaling-efficiency measurement (BASELINE.json's second axis).
+"""Scaling-efficiency measurement of the GOP-lane machinery.
 
 Two independent scaling axes of the GOP-lane machinery:
 
 1. lane batching on ONE device (the bench.py headline mode): fps at
-   G = 1/2/4/8 lanes, same chip — how much of the wavefront's latency
+   G = 1/2/4/8 lanes, same device — how much of the wavefront's latency
    bound lane-batching recovers;
 2. multi-chip SPMD over a ("gop", "band") mesh of 8 virtual CPU devices
    (JAX_PLATFORMS=cpu + xla_force_host_platform_device_count=8): fps at
